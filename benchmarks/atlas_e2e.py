@@ -89,6 +89,51 @@ def make_sparse_counts(n_spots: int, n_genes: int, nnz_per_spot: int, n_types: i
     return Y, X.astype(np.float64), coords
 
 
+def make_mixture_counts(n_spots: int, n_genes: int, reads_per_spot: int,
+                        n_types: int, seed=0):
+    """Sparse CSR counts drawn from known proportions on a grid.
+
+    The companion of :func:`make_sparse_counts` for accuracy checks: each
+    spot's ``reads_per_spot`` reads are drawn from the mixture of the type
+    expression profiles under spatially smooth ground-truth proportions
+    (soft assignment to K random centers), so a fit can be scored against
+    the truth. Returns ``(Y, X, coords, proportions)``; at 700 reads per
+    spot over 18k genes the matrix is ~97% sparse.
+    """
+    from flashdeconv_tpu.utils.graph import grid_coords
+
+    rng = np.random.default_rng(seed)
+    X = rng.gamma(2.0, 1.0, size=(n_types, n_genes))
+    X *= rng.random((n_types, n_genes)) < 0.05
+    coords = grid_coords(n_spots)
+    side = int(np.ceil(np.sqrt(n_spots)))
+    centers = rng.random((n_types, 2)) * side
+    scale = 2.0 * (0.08 * side) ** 2
+    props = np.empty((n_spots, n_types))
+    for k in range(n_types):
+        props[:, k] = np.exp(-((coords - centers[k]) ** 2).sum(axis=1) / scale)
+    props /= props.sum(axis=1, keepdims=True)
+
+    # Inverse-CDF draws, vectorized over all reads by offsetting each
+    # row's CDF by its row index: first the read's type, then its gene.
+    m = reads_per_spot
+    rows = np.repeat(np.arange(n_spots, dtype=np.int64), m)
+    cdf_t = (np.cumsum(props, axis=1) + np.arange(n_spots)[:, None]).ravel()
+    types = np.searchsorted(cdf_t, rng.random(rows.size) + rows, "right")
+    types = np.minimum(types - rows * n_types, n_types - 1)
+    prof = np.cumsum(X, axis=1)
+    prof /= prof[:, -1:]
+    cdf_g = (prof + np.arange(n_types)[:, None]).ravel()
+    genes = np.searchsorted(cdf_g, rng.random(rows.size) + types, "right")
+    genes = np.minimum(genes - types * n_genes, n_genes - 1)
+    Y = sparse.csr_matrix(
+        (np.ones(rows.size, dtype=np.float32), (rows, genes)),
+        shape=(n_spots, n_genes),
+    )
+    Y.sum_duplicates()
+    return Y, X, coords, props
+
+
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--spots", type=int, default=1_000_000)
@@ -112,8 +157,7 @@ def main() -> None:
     p.add_argument("--fetch-dtype", type=str, default=None,
                    choices=["float16", "bfloat16", "float32"],
                    help="device-side cast of the fetched proportions "
-                        "(float16 halves the dominant e2e cost on a "
-                        "remote-attached chip: the device->host payload)")
+                        "(float16 halves the device->host payload)")
     p.add_argument("--outputs", type=str, default="proportions",
                    help="comma list of fit outputs to fetch eagerly "
                         "('proportions', 'dominant', or "
@@ -225,9 +269,8 @@ def main() -> None:
             for n, arr in zip(names, (Y.data, Y.indices, Y.indptr, X, coords)):
                 np.save(os.path.join(args.cache, n + ".npy"), arr)
 
-    # Warm-up: on shared/remote-attached accelerators the process's FIRST
-    # sizeable execution can wait minutes for a scheduling slot; absorb that
-    # (plus residual compiles) outside the timed region with a small solve.
+    # Warm-up: absorb first-execution set-up (plus residual compiles)
+    # outside the timed region with a small solve.
     print("# warm-up solve...", file=sys.stderr)
     t0 = time.perf_counter()
     from flashdeconv_tpu.core.solver import bcd_solve
@@ -251,9 +294,8 @@ def main() -> None:
             file=sys.stderr,
         )
 
-    # verbose=False: the solve runs as ONE fused device call (the verbose
-    # path syncs every 10 sweeps to log objectives, which on a
-    # remote-attached chip costs more than the sweeps).
+    # verbose=False: the solve runs as ONE device program (the verbose
+    # path syncs every 10 sweeps to log objectives).
     totals, runs = [], []
     for i in range(max(args.fits, 1)):
         model = FlashDeconv(

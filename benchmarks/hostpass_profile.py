@@ -1,9 +1,8 @@
 """Root-cause probe for the 10M-spot host-pass non-linearity.
 
-Round-4 RESULTS.md shows the fused Xty pass at 0.60 s / 600M nnz (1M
-spots) but ~28 s / 6B nnz (10M) — ~4.7x worse than linear per nnz — with
-no explanation. This script isolates the kernel from the pipeline and the
-environment:
+A host-pass timing that grows faster than linear in nnz between 1M and
+10M spots can come from the kernel or from the host. This script isolates
+the kernel from the pipeline and the environment:
 
 - the SAME synthetic CSR row pattern at 1M rows and tiled to 10M rows
   (identical per-row work, warm pages in both cases, measured in ONE
@@ -18,10 +17,10 @@ environment:
   production case runs i32 and streams 4 B/nnz less — that difference
   is real but is NOT what this probe measures;
 - a memory-bandwidth probe interleaved between runs, so environment
-  drift (this VM's 2-5x swings) is visible in the same log;
+  drift is visible in the same log;
 - both fused passes (Xty contraction and the gene-selection moments).
 
-Run on the host (no TPU involvement): ``python benchmarks/hostpass_profile.py``.
+Run on the host (no accelerator involvement): ``python benchmarks/hostpass_profile.py``.
 Budget ~75 GiB RAM (24 GiB f32 data + 48 GiB int64 indices at 6B nnz)
 and several minutes for the 10M tiling.
 """

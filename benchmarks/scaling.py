@@ -100,7 +100,7 @@ def main() -> None:
         r["efficiency"] = round(r["spots_per_sec"] / (base * r["n_shards"]), 3)
 
     meaningful = len({d.process_index for d in devices}) > 1 or (
-        jax.default_backend() == "tpu" and len(devices) > 1
+        jax.default_backend() == "gpu" and len(devices) > 1
     )
     print(json.dumps({
         "metric": "scaling_efficiency",

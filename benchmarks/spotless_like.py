@@ -165,7 +165,7 @@ def _reference_model_cls():
 
 
 def run_dataset(design_name, seed, n_spots=600, n_genes=5000,
-                cells_per_type=120, engine="tpu"):
+                cells_per_type=120, engine="jax"):
     """Generate one silver-standard dataset and deconvolve it."""
     if engine == "reference":
         FlashDeconv = _reference_model_cls()
@@ -235,7 +235,7 @@ def run_dataset(design_name, seed, n_spots=600, n_genes=5000,
     return row
 
 
-def run(quick=False, replicates=4, seed0=0, engine="tpu"):
+def run(quick=False, replicates=4, seed0=0, engine="jax"):
     names = list(DESIGNS)
     reps = 1 if quick else replicates
     results = []
@@ -252,10 +252,24 @@ def run(quick=False, replicates=4, seed0=0, engine="tpu"):
             )
 
     rs = [x["pearson"] for x in results]
+    import subprocess
+
+    import jax
+
+    try:
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=False,
+        ).stdout.strip() or None
+    except OSError:
+        card = None
     return {
         "metric": "spotless_like_mean_pearson"
                   + ("_reference_impl" if engine == "reference" else ""),
         "engine": engine,
+        "device": {"platform": jax.devices()[0].platform,
+                   "kind": jax.devices()[0].device_kind, "card": card},
         "value": round(float(np.mean(rs)), 4),
         "unit": "pearson_r",
         "vs_baseline": round(float(np.mean(rs)) / 0.944, 3),
@@ -271,7 +285,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--replicates", type=int, default=4)
-    ap.add_argument("--engine", choices=("tpu", "reference"), default="tpu",
+    ap.add_argument("--engine", choices=("jax", "reference"), default="jax",
                     help="'reference' runs the original implementation "
                          "(numba stubbed to pure Python) on the SAME "
                          "datasets for a head-to-head accuracy comparison")

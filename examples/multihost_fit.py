@@ -14,14 +14,13 @@ Two ways to use it:
    (8 global), runs the distributed fit, and checks the result against a
    single-process ``fit`` on the full data.
 
-2. **On a TPU pod slice** — adapt the body of :func:`worker` into your
-   per-host script: call ``multihost.initialize()`` with NO arguments
-   (JAX auto-discovers the pod topology; the explicit
-   coordinator/process arguments and the CPU-platform override below
-   exist only for the localhost self-test), compute this host's row
-   slice with ``process_row_offsets``, and call ``fit_distributed`` with
-   the local rows. Everything from the slice computation down is
-   identical on a pod. See docs/deployment.md for the full pod recipe.
+2. **On a multi-host cluster** — adapt the body of :func:`worker` into
+   your per-host script: call ``multihost.initialize()`` with the
+   coordinator address, process count and this host's process id (the
+   CPU-platform override below exists only for the localhost self-test),
+   compute this host's row slice with ``process_row_offsets``, and call
+   ``fit_distributed`` with the local rows. Everything from the slice
+   computation down is identical on a cluster. See docs/deployment.md.
 
 The result is bit-identical to single-process ``fit`` on the concatenated
 inputs for the canonical CSR + log_cpm pipeline (see

@@ -1,11 +1,10 @@
-"""flashdeconv-tpu: TPU-native spatial transcriptomics deconvolution.
+"""flashdeconv-tpu: accelerator-native spatial transcriptomics deconvolution.
 
 A from-scratch JAX/XLA/Pallas reimplementation of the FlashDeconv method —
 leverage-weighted CountSketch gene compression, sparse spatial-graph
 Laplacian smoothing, and a graph-regularized NNLS solve via block coordinate
-descent — designed for single-chip-to-pod-scale TPU execution
-(spot-sharded ``shard_map`` BCD with halo exchange; see
-:mod:`flashdeconv_tpu.parallel`).
+descent — run on one GPU or a mesh of several (spot-sharded ``shard_map``
+BCD with halo exchange; see :mod:`flashdeconv_tpu.parallel`).
 
 Quick start (array API)::
 
@@ -26,30 +25,25 @@ import os as _os
 
 
 def _setup_compilation_cache() -> None:
-    """Enable JAX's persistent compilation cache (opt out via env).
+    """Enable JAX's persistent compilation cache.
 
-    Each (n_spots, K, max_deg) shape triple compiles its own solver
-    executable; on remote-attached TPUs that compile costs tens of seconds.
-    The persistent cache makes it a one-time cost per machine. Respects an
-    existing ``JAX_COMPILATION_CACHE_DIR``; disable with
-    ``FLASHDECONV_NO_COMPILE_CACHE=1``.
+    Each (n_spots, K, graph structure) shape compiles its own solver
+    executable; the persistent cache makes that a one-time cost. A
+    ``JAX_COMPILATION_CACHE_DIR`` set in the environment is used as it is
+    (JAX reads it itself). Otherwise the cache lives at a fixed path inside
+    the checkout, ``<repo>/.jax_cache`` (listed in ``.gitignore``): the
+    path is part of the cache key, so it must not move between runs.
     """
-    if _os.environ.get("FLASHDECONV_NO_COMPILE_CACHE"):
-        return
-    try:
-        import jax
+    import jax
 
-        if jax.config.jax_compilation_cache_dir is None:
-            cache_dir = _os.path.join(
-                _os.path.expanduser("~"), ".cache", "flashdeconv-tpu", "xla"
-            )
-            _os.makedirs(cache_dir, exist_ok=True)
-            jax.config.update("jax_compilation_cache_dir", cache_dir)
-            jax.config.update(
-                "jax_persistent_cache_min_compile_time_secs", 1.0
-            )
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
+    cache_dir = _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache",
+    )
+    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 _setup_compilation_cache()

@@ -1,6 +1,6 @@
 """Native (C++) host kernels for the O(nnz) CSR pipeline stages.
 
-The TPU owns the solve; the host owns single-pass CSR reductions (HVG
+The accelerator owns the solve; the host owns single-pass CSR reductions (HVG
 moments, CountSketch projection, row sums, the log_cpm transform, column
 subset) that numpy runs at a fraction of memory bandwidth (per-block
 temporaries, bincount index conversion, GIL-bounded threading).
@@ -547,8 +547,7 @@ def fused_log1pcpm_xty_chunks(
     the YtY partial-sum association differs, and YtY feeds nothing but the
     objective constant. The point of chunking: a pipeline can enqueue each
     chunk's host->device transfer while the kernel computes the next one,
-    hiding the (N, K) upload behind the O(nnz) pass on remote-attached
-    accelerators.
+    hiding the (N, K) upload behind the O(nnz) pass.
     """
     ctx = _fused_xty_setup(Y, gene_idx, buckets, weights, X_sketch)
     if ctx is None:

@@ -1,7 +1,7 @@
-// Native host kernels for the O(nnz) CSR passes that feed the TPU solver.
+// Native host kernels for the O(nnz) CSR passes that feed the device solver.
 //
-// The TPU owns the iterative solve; these kernels own the single-pass host
-// stages whose numpy implementations are memory-bound and GIL-threaded:
+// The accelerator owns the iterative solve; these kernels own the single-pass
+// host stages whose numpy implementations are memory-bound and GIL-threaded:
 //
 //   * log1p_cpm_moments_*  — per-gene sum / sum-of-squares of
 //     log1p(count * per-row scale) over a CSR matrix (the Seurat-v3 HVG

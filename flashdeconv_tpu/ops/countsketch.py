@@ -1,17 +1,10 @@
 """Device CountSketch projection: Y (N x G) -> Y_sketch (N x d).
 
-Two device paths (host scipy is a third path, in core.sketching):
-
-* **XLA matmul**: Y @ dense(Omega). Omega dense is only G x d (a few MB) and
-  the MXU eats the extra zeros for free — this is the speed-of-light path for
-  moderate G.
-* **Pallas kernel** (:func:`countsketch_project_pallas`): tiles Y over
-  (row-block, gene-block) grid cells, materializes each gene block's one-hot
-  scatter matrix on the fly in VMEM from the bucket/weight vectors (never
-  storing Omega in HBM), and accumulates row-block x d partial products on
-  the MXU. Fuses the weight scaling and avoids the HBM round-trip for Omega —
-  useful when G is large (whole-transcriptome sketching without gene
-  preselection).
+The device path is one dense product ``Y @ dense(Omega)``: Omega dense is
+only G x d (a few MB), and the product runs as a full-precision FP32 GEMM
+(``precision=HIGHEST``, so no TF32 rounding on the GPU). The host scipy
+path and the native sparse kernels live in :mod:`flashdeconv_tpu.core.
+sketching`.
 
 Replaces the reference's scipy sparse matmul (reference
 ``flashdeconv/core/sketching.py:160-206``).
@@ -19,191 +12,35 @@ Replaces the reference's scipy sparse matmul (reference
 
 from __future__ import annotations
 
-from functools import partial
-from typing import Optional
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-#: Conservative per-grid-step VMEM budget for the projection kernel
-#: (v5e VMEM is 128 MB; stay well under to leave Mosaic's double-buffer
-#: and spill headroom — d <= ~4096 passes at the default blocks,
-#: d ~ 8192 falls back to the XLA matmul path, which handles it fine).
-PALLAS_PROJECT_VMEM_BUDGET = 32 << 20
-
-
-def _pallas_project_vmem_bytes(
-    sketch_dim: int, row_block: int = 256, gene_block: int = 512
-) -> int:
-    """Estimated VMEM working set of :func:`countsketch_project_pallas`
-    per grid step: the streamed Y block (double-buffered), the untiled
-    (row_block, d_pad) output block (also double-buffered) + same-size
-    accumulator scratch, and the materialized (gene_block, d_pad) one-hot
-    value. The kernel never tiles the d axis, so this scales LINEARLY in
-    sketch_dim — the auto-enable gate must charge for it or a legal
-    large-d setting dies at Mosaic compile time."""
-    d_pad = _round_up(max(sketch_dim, 128), 128)
-    streams = 2 * row_block * gene_block * 4       # Y in, x2
-    out = 2 * row_block * d_pad * 4                # out block, x2
-    scratch = row_block * d_pad * 4                # accumulator
-    onehot = gene_block * d_pad * 4                # one-hot value
-    return streams + out + scratch + onehot
-
-
-def countsketch_project(
-    Y,
-    op,
-    dtype=jnp.float32,
-    use_pallas: Optional[bool] = None,
-):
+def countsketch_project(Y, op, dtype=jnp.float32):
     """Project rows of Y through a CountSketch operator on device.
 
     Parameters
     ----------
     Y : (N, G) array (host numpy or device array)
     op : :class:`flashdeconv_tpu.core.sketching.CountSketchOp`
-    use_pallas : force the Pallas kernel on/off; default: on for TPU when the
-        problem is large enough to amortize kernel launch.
 
     Returns
     -------
     (N, d) device array.
     """
     Y = jnp.asarray(Y, dtype=dtype)
-    n, g = Y.shape
-
-    if use_pallas is None:
-        use_pallas = (
-            jax.default_backend() == "tpu" and g >= 4096 and n >= 1024
-            and _pallas_project_vmem_bytes(op.sketch_dim)
-            <= PALLAS_PROJECT_VMEM_BUDGET
-        )
-
-    if use_pallas:
-        return countsketch_project_pallas(
-            Y, jnp.asarray(op.buckets), jnp.asarray(op.weights, dtype=dtype),
-            op.sketch_dim,
-        )
-
     omega = jnp.asarray(op.to_dense(np.dtype(dtype)), dtype=dtype)
     return _matmul_project(Y, omega)
 
 
 @jax.jit
 def _matmul_project(Y, omega):
-    # HIGHEST: the sketch feeds Gram/XtY precomputations where bf16 MXU
-    # rounding would leak into solver parity.
+    # HIGHEST: the sketch feeds Gram/XtY precomputations where reduced-
+    # precision (bf16 / TF32) products would leak into solver parity.
     return jnp.dot(
         Y,
         omega,
         preferred_element_type=jnp.float32,
         precision=jax.lax.Precision.HIGHEST,
     )
-
-
-def _countsketch_kernel(buckets_ref, weights_ref, y_ref, out_ref, acc_ref):
-    """Pallas TPU kernel: one (row-block, gene-block) grid cell.
-
-    Builds the gene block's one-hot scatter matrix in VMEM from the bucket
-    ids, scales by the sketch weights, and accumulates the row-block's
-    partial product on the MXU.
-    """
-    j = pl.program_id(1)
-    n_gene_blocks = pl.num_programs(1)
-
-    @pl.when(j == 0)
-    def _zero():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    gene_block = y_ref.shape[1]
-    d = out_ref.shape[1]
-
-    b = buckets_ref[:]                                 # (Gt, 1) int32
-    w = weights_ref[:]                                 # (Gt, 1) f32
-
-    cols = jax.lax.broadcasted_iota(jnp.int32, (gene_block, d), 1)
-    onehot = jnp.where(cols == b, w, 0.0)              # (Gt, d)
-
-    acc_ref[:] += jnp.dot(
-        y_ref[:],
-        onehot,
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-
-    @pl.when(j == n_gene_blocks - 1)
-    def _flush():
-        out_ref[:] = acc_ref[:]
-
-
-@partial(jax.jit, static_argnames=("sketch_dim", "row_block", "gene_block"))
-def countsketch_project_pallas(
-    Y,
-    buckets,
-    weights,
-    sketch_dim: int,
-    row_block: int = 256,
-    gene_block: int = 512,
-):
-    """CountSketch projection as a Pallas TPU kernel (see module docstring).
-
-    Pads N, G, and d to hardware-aligned multiples; padded genes carry weight
-    zero and bucket id ``d_pad`` (one past the PADDED output columns, so the
-    one-hot comparison never matches any column — retained or padding — and
-    the zero weight is belt-and-braces on top), so they contribute nothing.
-    """
-    n, g = Y.shape
-    d = sketch_dim
-
-    n_pad = _round_up(max(n, 8), row_block)
-    g_pad = _round_up(max(g, 128), gene_block)
-    d_pad = _round_up(max(d, 128), 128)
-
-    Yp = jnp.pad(Y.astype(jnp.float32), ((0, n_pad - n), (0, g_pad - g)))
-    # Column vectors: bucket/weight blocks ride the gene grid axis in VMEM.
-    bp = jnp.pad(
-        buckets.astype(jnp.int32), (0, g_pad - g), constant_values=d_pad
-    )[:, None]
-    wp = jnp.pad(weights.astype(jnp.float32), (0, g_pad - g))[:, None]
-
-    grid = (n_pad // row_block, g_pad // gene_block)
-
-    out = pl.pallas_call(
-        _countsketch_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (gene_block, 1), lambda i, j: (j, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (gene_block, 1), lambda i, j: (j, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (row_block, gene_block), lambda i, j: (i, j),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (row_block, d_pad), lambda i, j: (i, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        scratch_shapes=[pltpu.VMEM((row_block, d_pad), jnp.float32)],
-        out_shape=jax.ShapeDtypeStruct((n_pad, d_pad), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n_pad * g_pad * d_pad,
-            bytes_accessed=4 * (n_pad * g_pad + n_pad * d_pad + 2 * g_pad),
-            transcendentals=0,
-        ),
-    )(bp, wp, Yp)
-
-    return out[:n, :d]

@@ -1,9 +1,9 @@
 """Multi-device scaling layer: spot sharding, halo exchange, mesh solve.
 
 The reference implementation is single-process (SURVEY.md: no distributed
-code anywhere); this package is the TPU-native scaling design — a 1-D device
-mesh over the spot axis, locality-preserving graph partitioning, per-sweep
-boundary-row halo exchange over ICI, and ``pmax`` convergence reductions.
+code anywhere); this package is the multi-device scaling design — a 1-D
+device mesh over the spot axis, locality-preserving graph partitioning,
+per-sweep boundary-row halo exchange, and ``pmax`` convergence reductions.
 """
 
 from flashdeconv_tpu.parallel import multihost

@@ -1,14 +1,14 @@
-"""Multi-host execution helpers (TPU pod slices over DCN).
+"""Multi-host execution helpers (several hosts joined by a network).
 
 The reference is strictly single-process (SURVEY.md §2.3); this module is the
 thin layer that takes the spot-sharded solve from one host's devices to a
-full pod slice:
+multi-host cluster:
 
 * :func:`initialize` — ``jax.distributed.initialize`` wrapper (idempotent).
 * :func:`global_spot_mesh` — 1-D ``"spots"`` mesh over every device in the
   job, ordered host-major so that contiguous Morton blocks land on the same
-  host's chips first (halo edges then ride ICI within a host and only shard
-  boundaries cross DCN).
+  host's devices first (halo edges then stay on the intra-host links and
+  only shard boundaries cross the network between hosts).
 * :func:`host_spot_range` — which contiguous spot rows this process owns
   under a :class:`~flashdeconv_tpu.parallel.partition.ShardPlan`, so each
   host can load only its slice of Y from disk.
@@ -16,7 +16,7 @@ full pod slice:
 Usage on an N-host slice (same script on every host)::
 
     from flashdeconv_tpu.parallel import multihost, sharded_bcd_solve
-    multihost.initialize()                       # TPU: auto-discovers peers
+    multihost.initialize(coordinator, n_hosts, host_id)
     mesh = multihost.global_spot_mesh()
     beta, info = sharded_bcd_solve(Y_sketch, X_sketch, A, coords=coords,
                                    mesh=mesh)
@@ -47,8 +47,8 @@ def initialize(
 ) -> None:
     """Initialize JAX's distributed runtime (idempotent).
 
-    On Cloud TPU pods all three arguments are auto-detected; on other
-    platforms pass them explicitly. Must run before any JAX computation
+    Pass all three arguments explicitly unless a cluster environment that
+    JAX auto-detects provides them. Must run before any JAX computation
     (anything that instantiates an XLA backend — including ``jax.devices()``
     — makes distributed initialization impossible): call this at program
     start.
@@ -57,8 +57,7 @@ def initialize(
     first — those would themselves initialize the backend and turn this call
     into a guaranteed failure.
     """
-    is_init = getattr(jax.distributed, "is_initialized", None)
-    if is_init is not None and is_init():
+    if jax.distributed.is_initialized():
         return
     try:
         jax.distributed.initialize(
@@ -73,14 +72,14 @@ def initialize(
         if "must be called before" in msg:
             if coordinator_address is None and num_processes in (None, 1):
                 # Single-process convenience call after JAX is already in
-                # use: nothing to set up. (On a pod this would be a late
+                # use: nothing to set up. (On a cluster this would be a late
                 # call — warn so the silent-no-op trap is visible.)
                 import warnings
 
                 warnings.warn(
                     "multihost.initialize() called after the XLA backend "
                     "was created; distributed runtime not started. On a "
-                    "multi-host pod, call initialize() before any other "
+                    "multi-host cluster, call initialize() before any other "
                     "JAX use.",
                     RuntimeWarning,
                     stacklevel=2,
@@ -100,7 +99,7 @@ def global_spot_mesh() -> Mesh:
 
     ``jax.devices()`` already enumerates devices grouped by process; keeping
     that order means a contiguous block of shards maps to one host, so the
-    Morton-contiguous partition puts most halo edges on intra-host ICI.
+    Morton-contiguous partition puts most halo edges on intra-host links.
     """
     return Mesh(np.asarray(jax.devices()), (_AXIS,))
 
@@ -385,7 +384,7 @@ def host_spot_range(
         The plan the solve will run with (``plan.n_shards`` must equal
         ``mesh.devices.size``). Using the plan — not a recomputed
         ``ceil(n/S)`` — matters because the solver may pad ``shard_size``
-        (e.g. to the Pallas block size on TPU).
+        (``plan_shards(pad_shard_to=...)``).
 
     Ordered-spot space is the plan's permuted, padded layout; use
     ``plan.perm`` to map back to the caller's original spot indices.

@@ -8,7 +8,7 @@ to compute.
 
 The reference implementation has no analogous component (it is single-process,
 reference ``flashdeconv/core/solver.py:149`` uses shared-memory threads); this
-is the TPU-native scaling layer described in SURVEY.md §2.3/§7.
+is the multi-device scaling layer described in SURVEY.md §2.3/§7.
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ Exchange scheme (static shapes throughout, per SURVEY.md §7):
    itself (:func:`flashdeconv_tpu.ops.bcd.coordinate_descent`) is unchanged.
 
 All index remapping happens once on the host; per sweep only the (tiny)
-boundary rows move over ICI.
+boundary rows move between devices.
 """
 
 from __future__ import annotations
@@ -86,8 +86,8 @@ def plan_shards(
     coords : spot coordinates for the locality ordering; if None (or
         ``order='none'``) spots keep their input order.
     pad_deg_to : round max degree up to a multiple (layout alignment).
-    pad_shard_to : round shard_size up to a multiple (e.g. the Pallas
-        coordinate-pass block size); padded rows are masked out.
+    pad_shard_to : round shard_size up to a multiple (layout alignment);
+        padded rows are masked out.
     """
     A_csr = A.tocsr()
     n = A_csr.shape[0]

@@ -44,11 +44,11 @@ def deconvolve(
     With ``copy=False`` (default) the AnnData is modified in place and None is
     returned; with ``copy=True`` a modified copy is returned.
 
-    TPU-scaling extras beyond the reference keyword surface: ``mesh`` /
+    Scaling extras beyond the reference keyword surface: ``mesh`` /
     ``n_shards`` route the solve through the spot-sharded multi-device path
     (:func:`flashdeconv_tpu.parallel.sharded_bcd_solve`);
-    ``fetch_dtype="float16"`` halves the proportions payload fetched from a
-    remote-attached accelerator (device-side cast; values in [0, 1]
+    ``fetch_dtype="float16"`` halves the proportions payload fetched from
+    the accelerator (device-side cast; values in [0, 1]
     quantize at ~5e-4 — see ``FlashDeconv``).
 
     Adds to the AnnData:

@@ -1,4 +1,4 @@
-"""Spatial neighbor-graph construction and TPU-friendly neighbor layouts.
+"""Spatial neighbor-graph construction and accelerator-friendly neighbor layouts.
 
 Graph *construction* is host-side (scipy cKDTree): it is a one-shot
 O(N log N) step. The graph is then converted to the layout the device solver
@@ -248,55 +248,6 @@ def adjacency_to_padded_capped(
     return nbr, counts, ov_src, ov_dst
 
 
-def cap_sparse_bands(
-    offsets: np.ndarray,
-    masks: np.ndarray,
-    A_rest: sparse.spmatrix,
-    total_nnz: int,
-    min_density: float = 0.05,
-    max_spill_frac: float = 0.02,
-) -> Tuple[np.ndarray, np.ndarray, sparse.csr_matrix]:
-    """Spill near-empty bands out of a banded decomposition.
-
-    A finite-grid kNN graph grows boundary-artifact bands (corner/edge
-    spots whose k-th nearest neighbor sits 2 rows/columns away): on the
-    1M benchmark grid, 8 of 16 bands hold <0.2% of the edges each, yet
-    each band costs the fused sweep kernel one full-(K, B) FMA pass per
-    sweep (~38 us at 1M x 20 — round-5 ablation). Bands with density
-    below ``min_density`` are removed from the banded set and their
-    edges merged into ``A_rest``, PROVIDED the combined spill stays
-    under ``max_spill_frac`` of the graph's edges (the rest machinery is
-    compact-scatter-based and must stay O(small)); otherwise the
-    decomposition is returned unchanged.
-
-    Returns the same triple shape as :func:`banded_split`.
-    """
-    if offsets.size == 0 or masks.size == 0:
-        return offsets, masks, A_rest.tocsr()
-    dens = masks.mean(axis=1)
-    spill = dens < min_density
-    if not spill.any():
-        return offsets, masks, A_rest.tocsr()
-    spilled_nnz = int(masks[spill].sum())
-    if spilled_nnz > max_spill_frac * max(int(total_nnz), 1):
-        return offsets, masks, A_rest.tocsr()
-    n = masks.shape[1]
-    rows = []
-    cols = []
-    for u in np.flatnonzero(spill):
-        j = np.flatnonzero(masks[u])
-        rows.append(j)
-        cols.append(j + int(offsets[u]))
-    rows = np.concatenate(rows) if rows else np.zeros(0, np.int64)
-    cols = np.concatenate(cols) if cols else np.zeros(0, np.int64)
-    spill_m = sparse.coo_matrix(
-        (np.ones(rows.size, dtype=np.float32), (rows, cols)), shape=(n, n)
-    )
-    A_rest2 = (A_rest.tocsr() + spill_m.tocsr()).tocsr()
-    A_rest2.sort_indices()
-    return offsets[~spill], masks[~spill], A_rest2
-
-
 def banded_split(
     A: sparse.spmatrix,
     max_offsets: int = 16,
@@ -306,10 +257,9 @@ def banded_split(
 
     Grid-structured spatial graphs (Visium HD bins, Stereo-seq bins, or any
     Morton-ordered planar kNN graph) concentrate their edges on a handful of
-    row offsets ``j - i`` (e.g. ±1, ±row_length, ±row_length±1). On TPU a
-    neighbor sum over such edges is far cheaper as **contiguous shifted adds**
-    (one streaming pass per offset) than as a random row gather, which is
-    DMA-latency-bound at ~10 GB/s effective.
+    row offsets ``j - i`` (e.g. ±1, ±row_length, ±row_length±1). A neighbor
+    sum over such edges is far cheaper as **contiguous shifted adds** (one
+    streaming pass per offset) than as a random row gather.
 
     Returns
     -------

@@ -17,8 +17,9 @@ left AND right neighbor across two different process boundaries
 simultaneously (a 2-process job only ever has one boundary, with one
 sender per direction).
 
-The TPU-pod analog is the same code path with devices discovered by
-``multihost.initialize()`` (no arguments) — see parallel/multihost.py.
+A multi-host cluster runs the same code path, with the coordinator, process
+count and process id passed to ``multihost.initialize()`` — see
+parallel/multihost.py.
 """
 
 import json
@@ -82,25 +83,22 @@ for strategy in ("banded", "halo"):
     }}
     np.save(os.path.join(outdir, f"beta_{{strategy}}_p{{pid}}.npy"), beta)
 
-# Fused banded mesh kernel (interpret mode) across the REAL process
-# boundaries: the per-sweep ppermute halo-block transfers at every
-# cross-process shard boundary ride Gloo here (ICI on a pod) — with 4
-# processes the interior ones send AND receive across two boundaries
-# per sweep. Must be bit-identical to the single-process 8-device
-# fused solve.
+# Float32 GSPMD banded solve across the REAL process boundaries: the
+# compiler-inserted halo transfers at every cross-process shard boundary
+# ride Gloo here (the interconnect between hosts on a cluster) — with 4
+# processes the interior ones send AND receive across two boundaries per
+# sweep. Must be bit-identical to the single-process 8-device solve.
 from flashdeconv_tpu.parallel.gspmd import GspmdBandedProblem
 
-pfused = GspmdBandedProblem(
+pf32 = GspmdBandedProblem(
     Y_sketch, X_sketch, A, mesh=mesh, dtype=np.float32,
-    fused_interpret=True, fused_block=32,
 )
-assert pfused.use_fused
-beta_f, info_f = pfused.solve(lambda_=0.3, max_iter=40, tol=1e-5)
-record["fused"] = {{
+beta_f, info_f = pf32.solve(lambda_=0.3, max_iter=40, tol=1e-5)
+record["banded_f32"] = {{
     "n_iterations": info_f["n_iterations"],
     "final_objective": info_f["final_objective"],
 }}
-np.save(os.path.join(outdir, f"beta_fused_p{{pid}}.npy"), beta_f)
+np.save(os.path.join(outdir, f"beta_banded_f32_p{{pid}}.npy"), beta_f)
 
 # Distributed gene selection: each process holds ONLY its slice of the
 # spots; the HVG moments are the one cross-process reduction
@@ -534,26 +532,24 @@ def test_multi_process_solve_matches_single_process(tmp_path, nproc):
                 info_ref["final_objective"], rel=1e-12
             )
 
-    # Fused mesh kernel: single-process 8-device fused reference.
+    # Float32 GSPMD solve: single-process 8-device reference.
     import jax
     from jax.sharding import Mesh
 
     from flashdeconv_tpu.parallel.gspmd import GspmdBandedProblem
 
     mesh8 = Mesh(np.asarray(jax.devices()[:8]), ("spots",))
-    pfused_ref = GspmdBandedProblem(
+    pf32_ref = GspmdBandedProblem(
         Y_sketch, X_sketch, A, mesh=mesh8, dtype=np.float32,
-        fused_interpret=True, fused_block=32,
     )
-    assert pfused_ref.use_fused
-    beta_fused_ref, info_fused_ref = pfused_ref.solve(
+    beta_f32_ref, info_f32_ref = pf32_ref.solve(
         lambda_=0.3, max_iter=40, tol=1e-5
     )
     for pid in range(nproc):
-        beta_mp = np.load(tmp_path / f"beta_fused_p{pid}.npy")
-        np.testing.assert_array_equal(beta_mp, beta_fused_ref)
-        assert (records[pid]["fused"]["n_iterations"]
-                == info_fused_ref["n_iterations"])
+        beta_mp = np.load(tmp_path / f"beta_banded_f32_p{pid}.npy")
+        np.testing.assert_array_equal(beta_mp, beta_f32_ref)
+        assert (records[pid]["banded_f32"]["n_iterations"]
+                == info_f32_ref["n_iterations"])
 
     # Distributed gene selection across the real process boundary must
     # reproduce the single-host gene set on the concatenated matrix

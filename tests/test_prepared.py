@@ -129,23 +129,25 @@ class TestPreparedSolve:
 
 class TestSolveProgram:
     """The one-dispatch f32 solve (ops/bcd.solve_program) must reproduce
-    the decomposed _run_chunk + _eval_objective dispatches bitwise on the
-    gather and unfused-banded tiers (the fused tier has its own test in
-    test_fused_banded.py)."""
+    the decomposed loop + objective dispatches (ops/bcd.iterate and
+    ops/bcd.objective) bitwise on the gather and banded tiers."""
 
     def _decomposed(self, prob, lambda_, rho, max_iter):
-        import jax
         import jax.numpy as jnp
+
+        from flashdeconv_tpu.ops import bcd
 
         lam_d = jnp.asarray(lambda_, dtype=prob.dtype)
         rho_d = jnp.asarray(rho * prob.mean_diag, dtype=prob.dtype)
         tol_d = jnp.asarray(1e-30, dtype=prob.dtype)
         beta0 = prob._beta0(None)
-        beta_d, n_iter, rel = prob._run_chunk(
-            beta0, lam_d, rho_d, tol_d, max_iter,
-            jnp.asarray(max_iter, jnp.int32),
+        operands = prob._operands()
+        beta_d, n_iter, rel = bcd.iterate(
+            beta0, operands, lam_d, rho_d, tol_d,
+            jnp.asarray(max_iter, jnp.int32), max_iter=max_iter,
+            kernel=False, **prob._static(),
         )
-        obj = prob._eval_objective(beta_d, lam_d, rho_d)
+        obj = bcd.objective(beta_d, operands, lam_d, rho_d, **prob._static())
         beta = np.asarray(beta_d)[: prob.n_spots]
         if prob.perm is not None:
             unperm = np.empty_like(beta)
@@ -154,11 +156,12 @@ class TestSolveProgram:
         return beta, int(n_iter), float(obj)
 
     def _check(self, prob, tier_attr):
-        assert not prob.use_fused_banded
+        assert prob.sweep_kernel == "xla"
         assert getattr(prob, tier_attr)
         beta, info = prob.solve(
             lambda_=0.3, rho=0.02, max_iter=5, tol=1e-30,
         )
+        assert info["sweep_kernel"] == "xla"
         beta_ref, it_ref, obj_ref = self._decomposed(prob, 0.3, 0.02, 5)
         assert info["n_iterations"] == it_ref
         np.testing.assert_array_equal(
@@ -175,9 +178,9 @@ class TestSolveProgram:
         self._check(prob, "n_spots")
 
     def test_banded_tier(self):
-        # grid graph above the banded-analysis gate (8192 spots); the
-        # fused kernel stays off on the CPU test backend, so this is the
-        # unfused banded tier
+        # grid graph above the banded-analysis gate (8192 spots); the GPU
+        # sweep kernel stays off on the CPU test backend, so this is the
+        # XLA banded tier
         side = 96
         coords = grid_coords(side=side)
         A = build_knn_graph(coords, k=4)

@@ -257,13 +257,12 @@ class TestSolverParity:
 
 
 class TestLargeKParity:
-    """The K > 128 tier: no Pallas kernel (K exceeds one VMEM block), so
-    the solve runs the XLA coordinate pass — lax.fori_loop with dynamic
-    slices for K > _UNROLL_MAX_K (64; the unrolled tier below it is
-    exercised by every small-K test in the suite, and the fori tier is
-    pinned bitwise to it by the monkeypatch test at the bottom).
-    Reference trajectory parity must hold on the fori tier at, above, and
-    well above the Pallas boundary (129 / 160 / 200).
+    """Large K: above the GPU sweep kernel's cap the solve runs the XLA
+    coordinate pass — lax.fori_loop with dynamic slices for K >
+    _UNROLL_MAX_K (64; the unrolled tier below it is exercised by every
+    small-K test in the suite, and the fori tier is pinned bitwise to it by
+    the monkeypatch test at the bottom). Reference trajectory parity must
+    hold on the fori tier well above the cap (129 / 160 / 200).
     """
 
     @pytest.mark.parametrize("n_types", [129, 160, 200])

@@ -125,25 +125,6 @@ class TestSketchData:
                 np.zeros((3, 5)), np.zeros((2, 5)), 4, backend="devcie"
             )
 
-    def test_pallas_projection_vmem_gate(self):
-        """The Pallas auto-enable gate charges the untiled d axis: the
-        kernel's VMEM footprint is linear in sketch_dim, so large-d
-        settings must fall back to the XLA matmul (hardware-validated:
-        d <= 4096 compiles, d = 8192 exceeded VMEM before the gate)."""
-        from flashdeconv_tpu.ops.countsketch import (
-            PALLAS_PROJECT_VMEM_BUDGET,
-            _pallas_project_vmem_bytes,
-        )
-
-        assert _pallas_project_vmem_bytes(512) <= PALLAS_PROJECT_VMEM_BUDGET
-        assert _pallas_project_vmem_bytes(4096) <= PALLAS_PROJECT_VMEM_BUDGET
-        assert _pallas_project_vmem_bytes(8192) > PALLAS_PROJECT_VMEM_BUDGET
-        # linear growth in d_pad
-        assert (
-            _pallas_project_vmem_bytes(8192)
-            > 1.9 * _pallas_project_vmem_bytes(4096) - (1 << 20)
-        )
-
     def test_host_device_paths_agree(self):
         rng = np.random.RandomState(4)
         Y = rng.rand(25, 70)
